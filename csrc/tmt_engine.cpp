@@ -1,7 +1,7 @@
 // tmt_engine.cpp — native C++ implementation of the tile-match game semantics.
 //
 // Role in the framework: high-performance host-side engine (CPU serving,
-// data-generation, differential oracle for the JAX/TPU kernels).  It
+// data-generation, differential oracle for the JAX kernels).  It
 // implements the same behavioural contract as tile_match_tpu's jitted kernels
 // (which are themselves differentially verified against the reference
 // implementation at /root/reference): state encoding (colour/kind channels,

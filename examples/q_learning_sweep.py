@@ -6,7 +6,9 @@ mp.Pool sweep on a 3x3x2 board).  Two modes:
 * --device : the dense-table device-resident learner (train_dense) — each
   hyperparameter combo runs a whole batch of envs under jit.
 * default  : host dict-table agent through the Gymnasium adapter (reference
-  behaviour), parallelised with multiprocessing.
+  behaviour), parallelised with multiprocessing.  The workers run on the
+  CPU: a JAX process reserves most of a GPU's memory when it first uses it,
+  so only one process per card can.
 """
 
 import argparse
@@ -81,7 +83,9 @@ def main():
     params = list(itertools.product(eps_fracs, gammas, lrs, seeds))
     import multiprocessing as mp
 
-    with mp.Pool(min(mp.cpu_count(), 8)) as pool:
+    # Inherited by the workers before any of them imports JAX.
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    with mp.get_context("spawn").Pool(min(mp.cpu_count(), 8)) as pool:
         pool.starmap(
             execute_run,
             [(e, g, l, s, args.episodes, args.out) for (e, g, l, s) in params],

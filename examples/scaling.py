@@ -1,13 +1,13 @@
 """Weak-scaling measurement over a device mesh.
 
 Measures batched env-steps/s at dp = 1, 2, 4, ... devices with a fixed
-per-device batch (weak scaling).  On this image real multi-chip hardware is
-unavailable, so run it on the virtual CPU mesh for the scaling *shape*:
+per-device batch (weak scaling).  Without several devices, run it on a
+virtual CPU mesh for the scaling *shape*:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/scaling.py --per-device-batch 64 --steps 8
 
-On a real pod slice the same script reports ICI-scaled throughput.
+On a machine with several GPUs the same script measures the real scaling.
 """
 
 import argparse
@@ -45,12 +45,11 @@ def main():
         out = fn(jax.random.PRNGKey(0))
         jax.block_until_ready(out)
         t0 = time.perf_counter()
-        _, rew, stats = fn(jax.random.PRNGKey(1))
-        # fetching values is the only trustworthy sync on every backend
+        _, rew, stats = jax.block_until_ready(fn(jax.random.PRNGKey(1)))
+        dt = time.perf_counter() - t0
         total = float(rew.sum())
         shard_max = [float(x) for x in stats["shard_max_trips"]]
         trips_sum = float(stats["trips_sum"])
-        dt = time.perf_counter() - t0
         sps = B * args.steps / dt
         if base_sps is None:
             base_sps = sps

@@ -1,38 +1,31 @@
-"""Differential stress tests for the kernel's rich closed-form trips.
+"""Differential stress tests on painted match shapes: XLA resolve vs C++.
 
-Round-5 absorptions (bomb pairs, cookie creation, length-4 partner cases —
-`ops/pallas_cascade._simple_trip_tile`'s case table) must be bit-identical
-to the full classify/resolve machinery.  These tests drive
-``fused_specials_cascade`` (kernel in interpret mode + compacted machinery
-rounds) against the vmapped engine cascade loop — literally the code
-``engine_move`` runs — on boards painted with the exact shapes each case
-absorbs, plus dense random fuzz where every shape arises organically.
-
-The painted shapes land on line-free checkerboard bases so the FIRST trip
-exercises the intended case; subsequent trips (random refills) add organic
-coverage for free.
+Each case paints the shape it names (T/L crosses, extension lines through a
+primary, cookie lines and stars, tripods, disjoint pairs) onto a line-free
+checkerboard base, with and without specials on the board, for the full,
+lasers+bomb and no-bomb configs, plus dense random fuzz where every shape
+arises organically.  Every cascade trip is run twice: through the jitted
+XLA pipeline (``get_colour_lines`` -> ``process_colour_lines`` ->
+``resolve_colour_matches``, then ``gravity`` and ``apply_refill``) and
+through the C++ engine's ``tmt_resolve_once``/``tmt_gravity``/
+``tmt_apply_refill``; boards and activation/creation counts must agree bit
+for bit after each stage.  The painted shape is the FIRST trip; later trips
+run on refilled boards drawn from a seeded numpy stream.
 """
+
+import functools
 
 import numpy as np
 import pytest
 
 import jax
-import jax.numpy as jnp
 
 from tile_match_tpu.config import EnvConfig
-from tile_match_tpu.engine import specials_cascade_trip
-from tile_match_tpu.envs.fused import fused_specials_cascade
-from tile_match_tpu.ops.lines import has_any_line
-from tile_match_tpu.ops.pallas_cascade import cascade_sp_chunk
-
-@pytest.fixture(autouse=True)
-def _clear_xla_caches():
-    """The interpret-mode programs are enormous; the in-process XLA CPU
-    compiler segfaults under accumulated executable pressure (see
-    tests/conftest.py history) — drop caches around every test here."""
-    jax.clear_caches()
-    yield
-
+from tile_match_tpu.native import _flags, load
+from tile_match_tpu.ops.board_ops import apply_refill, gravity
+from tile_match_tpu.ops.classify import process_colour_lines
+from tile_match_tpu.ops.lines import get_colour_lines
+from tile_match_tpu.ops.resolve import resolve_colour_matches
 
 CFG_FULL = EnvConfig.create(
     8, 8, 4, 6,
@@ -51,57 +44,61 @@ CFG_NOBOMB = EnvConfig.create(
 )
 
 
-def cascade_twin(cfg, colour_b, kind_b, sub_keys):
-    """The vmapped engine cascade loop (engine_move's casc body verbatim)."""
+@functools.lru_cache(maxsize=None)
+def _xla_trip(cfg):
+    """One cascade trip through the XLA pipeline: (resolved colour, kind,
+    activated, created, overflow) and the board after gravity + refill."""
 
-    def one(colour, kind, sub):
-        def cond(c):
-            colour, kind, elim, act, new, trunc, it = c
-            return has_any_line(cfg, colour, kind) & (it < cfg.max_cascades)
+    def trip(colour, kind, grid):
+        ls = get_colour_lines(cfg, colour, kind)
+        m = process_colour_lines(cfg, colour, ls)
+        colour, kind, act, new, ovf = resolve_colour_matches(cfg, colour, kind, m)
+        fc, fk = apply_refill(*gravity(colour, kind), grid)
+        return colour, kind, act, new, m.ovf | ovf, fc, fk
 
-        def body(c):
-            colour, kind, elim, act, new, trunc, it = c
-            colour, kind, e, a, n, ovf = specials_cascade_trip(
-                cfg, colour, kind, sub, it
-            )
-            return colour, kind, elim + e, act + a, new + n, trunc | ovf, it + 1
+    return jax.jit(trip)
 
-        z = jnp.int32(0)
-        colour, kind, elim, act, new, trunc, it = jax.lax.while_loop(
-            cond, body, (colour, kind, z, z, z, jnp.asarray(False), z)
-        )
-        trunc = trunc | has_any_line(cfg, colour, kind)
-        return colour, kind, elim, act, new, it, trunc
 
-    return jax.vmap(one)(colour_b, kind_b, sub_keys)
+def cpp_trip(lib, cfg, colour, kind, grid):
+    """The same trip through the C++ engine, on copies of the board."""
+    R, C = cfg.num_rows, cfg.num_cols
+    colour, kind = colour.copy(), kind.copy()
+    stats = np.zeros((2,), np.int32)
+    had = lib.tmt_resolve_once(colour, kind, R, C, _flags(cfg), stats)
+    resolved = colour.copy(), kind.copy()
+    lib.tmt_gravity(colour, kind, R, C)
+    lib.tmt_apply_refill(colour, kind, np.ascontiguousarray(grid), R, C)
+    return bool(had), resolved, stats, (colour, kind)
 
 
 def assert_cascade_match(cfg, colour_b, kind_b, seed, tag):
-    B = colour_b.shape[0]
-    sub_keys = jax.vmap(jax.random.PRNGKey)(
-        jnp.arange(seed * 10000, seed * 10000 + B)
-    )
-    got = fused_specials_cascade(
-        cfg, jnp.asarray(colour_b), jnp.asarray(kind_b), sub_keys,
-        interpret=True,
-    )
-    want = cascade_twin(
-        cfg, jnp.asarray(colour_b), jnp.asarray(kind_b), sub_keys
-    )
-    names = ["colour", "kind", "elim", "act", "new", "trips", "trunc"]
-    for g, w, name in zip(got, want, names):
-        g, w = np.asarray(g), np.asarray(w)
-        if not np.array_equal(g, w):
-            bad = np.nonzero(
-                (g != w).reshape(B, -1).any(axis=1)
-            )[0][:3]
-            raise AssertionError(
-                f"{tag}: {name} diverges at boards {bad}\n"
-                f"input colour:\n{np.asarray(colour_b)[bad[0]]}\n"
-                f"input kind:\n{np.asarray(kind_b)[bad[0]]}\n"
-                f"got:\n{g[bad[0]] if g.ndim > 1 else g[bad]}\n"
-                f"want:\n{w[bad[0]] if w.ndim > 1 else w[bad]}"
+    """Run every board's cascade trip by trip through both engines."""
+    lib = load()
+    trip = _xla_trip(cfg)
+    rng = np.random.default_rng(seed)
+    R, C, K = cfg.num_rows, cfg.num_cols, cfg.num_colours
+    for b in range(colour_b.shape[0]):
+        colour = np.ascontiguousarray(colour_b[b], np.int32)
+        kind = np.ascontiguousarray(kind_b[b], np.int32)
+        for t in range(cfg.max_cascades):
+            grid = rng.integers(1, K + 1, size=(R, C)).astype(np.int32)
+            had, (rc, rk), stats, (fc, fk) = cpp_trip(lib, cfg, colour, kind, grid)
+            jc, jk, act, new, ovf, jfc, jfk = jax.device_get(
+                trip(colour, kind, grid)
             )
+            where = f"{tag}: board {b} trip {t}\ncolour:\n{colour}\nkind:\n{kind}"
+            assert not ovf, f"{where}\ncapacity overflow"
+            if not had:
+                assert int(act) == 0 and int(new) == 0, where
+                assert np.array_equal(jc, colour) and np.array_equal(jk, kind), where
+                break
+            assert np.array_equal(rc, jc), f"{where}\ncpp:\n{rc}\nxla:\n{jc}"
+            assert np.array_equal(rk, jk), f"{where}\ncpp:\n{rk}\nxla:\n{jk}"
+            assert (int(stats[0]), int(stats[1])) == (int(act), int(new)), where
+            assert np.array_equal(fc, jfc) and np.array_equal(fk, jfk), where
+            colour, kind = fc, fk
+        else:
+            raise AssertionError(f"{tag}: board {b} still matching after the cap")
 
 
 def base_board(R, C, K, rng):
@@ -275,7 +272,7 @@ def test_painted_shapes_no_bomb(case):
 @pytest.mark.parametrize("seed", range(4))
 def test_random_lined_boards_fuzz(seed):
     """Uniform random boards: every shape family arises organically, and
-    trips 2+ run on refilled boards (the same coverage engine_move sees)."""
+    trips 2+ run on refilled boards."""
     rng = np.random.default_rng(seed)
     B, R, C = 48, 8, 8
     cols = rng.integers(1, 5, size=(B, R, C)).astype(np.int32)
@@ -292,45 +289,34 @@ def test_random_lined_boards_fuzz(seed):
 
 
 def test_bomb_pair_consumed_in_kernel():
-    """A clean T-cross must be consumed by the kernel (frozen == 0) and
-    actually create the bomb at the share point."""
+    """A clean T-cross: both engines create the bomb at the share point in
+    the first trip."""
     rng = np.random.default_rng(0)
     col = base_board(8, 8, 4, rng)
     used = set(np.unique(col))
     pc = [k for k in range(1, 5) if k not in used][0]
     paint(col, [(hline(5, 2, 3), pc), (vline(3, 3, 3), pc)])
     kind = np.ones((8, 8), np.int32)
-    z = jnp.zeros((1,), jnp.int32)
-    c_o, k_o, trips_o, elim_o, new_o, act_o, frozen_o, active_o, _ = (
-        cascade_sp_chunk(
-            CFG_FULL, jnp.asarray(col)[None], jnp.asarray(kind)[None],
-            jax.random.PRNGKey(3)[None], z, z, z, interpret=True,
-        )
-    )
-    # later trips on random refills may legitimately freeze; the painted
-    # T-pair is the FIRST trip, so trips >= 1 proves the kernel consumed it
-    # (freezing happens before consuming) and new >= 1 that it created the
-    # bomb in-kernel.
-    assert int(trips_o[0]) >= 1, "bomb pair was deferred instead of absorbed"
-    assert int(new_o[0]) >= 1, "no bomb tile created in-kernel"
+    grid = np.ones((8, 8), np.int32)
+    had, (_, rk), stats, _ = cpp_trip(load(), CFG_FULL, col, kind, grid)
+    assert had and int(stats[1]) == 1, "the T-cross created no special"
+    assert rk[5, 3] == 4, f"no bomb at the share point:\n{rk}"
+    assert_cascade_match(CFG_FULL, col[None], kind[None], 3, "bomb_pair")
 
 
 def test_cookie_creation_consumed_in_kernel():
+    """A length-5 line: both engines create a cookie in the first trip."""
     rng = np.random.default_rng(1)
     col = base_board(8, 8, 4, rng)
     used = set(np.unique(col))
     pc = [k for k in range(1, 5) if k not in used][0]
     paint(col, [(hline(4, 1, 5), pc)])
     kind = np.ones((8, 8), np.int32)
-    z = jnp.zeros((1,), jnp.int32)
-    c_o, k_o, trips_o, elim_o, new_o, act_o, frozen_o, active_o, _ = (
-        cascade_sp_chunk(
-            CFG_FULL, jnp.asarray(col)[None], jnp.asarray(kind)[None],
-            jax.random.PRNGKey(4)[None], z, z, z, interpret=True,
-        )
-    )
-    assert int(trips_o[0]) >= 1, "cookie line was deferred instead of absorbed"
-    assert int(new_o[0]) >= 1, "no cookie tile created in-kernel"
+    grid = np.ones((8, 8), np.int32)
+    had, (_, rk), stats, _ = cpp_trip(load(), CFG_FULL, col, kind, grid)
+    assert had and int(stats[1]) == 1, "the length-5 line created no special"
+    assert (rk[4] == -1).sum() == 1, f"no cookie on the line's row:\n{rk}"
+    assert_cascade_match(CFG_FULL, col[None], kind[None], 4, "cookie")
 
 
 CFG_BIG = EnvConfig.create(
@@ -342,10 +328,8 @@ CFG_BIG = EnvConfig.create(
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_big_board_lean_path(seed):
-    """R*C > 256 boards route through the LEAN predicate (sharing and >=5
-    lines defer; the star/pairwise chain reductions exceed the Mosaic
-    compiler's budget at 20x20) — must still be bit-exact vs the
-    machinery."""
+    """A 15x18 board (R*C > 256, non-square) with random colours and
+    specials: bit-exact against the C++ engine."""
     rng = np.random.default_rng(seed)
     B, R, C = 12, 15, 18
     cols = rng.integers(1, 6, size=(B, R, C)).astype(np.int32)

@@ -1,7 +1,6 @@
-"""tile_match_tpu — a TPU-native (JAX/XLA/Pallas) tile-matching environment
-engine with the capabilities of ``tile-match-gym`` (reference at
-/root/reference), rebuilt from scratch as pure functional, batched,
-shardable array programs.
+"""tile_match_tpu — a JAX/XLA tile-matching environment engine with the
+capabilities of ``tile-match-gym``, rebuilt from scratch as pure functional,
+batched, shardable array programs.
 """
 
 from .config import EnvConfig, TILE_TYPES

@@ -1,6 +1,6 @@
 """Static environment configuration.
 
-TPU-native counterpart of the reference's constructor kwargs
+Counterpart of the reference's constructor kwargs
 (`/root/reference/src/tile_match_gym/tile_match_env.py:17-27` and
 `/root/reference/src/tile_match_gym/board.py:42-51`).  The reference passes
 feature flags around as lists of special-name strings; here they become a

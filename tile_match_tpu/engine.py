@@ -1,12 +1,12 @@
 """The core engine: pure-functional reset/step over ``EnvState``.
 
-TPU-native restructuring of ``Board.move`` (`board.py:330-395`),
+Array-program restructuring of ``Board.move`` (`board.py:330-395`),
 ``Board.generate_board`` (`board.py:95-112`) and ``TileMatchEnv.step/reset``
 (`tile_match_env.py:84-112`): every unbounded Python loop becomes a bounded
 ``lax.while_loop`` (cascade, regeneration, playability), every per-action
 scan becomes the batched effective mask, and all randomness is counter-based
 threefry per environment.  ``jax.vmap(step)`` steps thousands of boards in
-lockstep; see ``parallel/`` for multi-chip sharding.
+lockstep; see ``parallel/`` for multi-device sharding.
 
 For bit-exact numpy-RNG parity with the reference, the same kernels are
 driven by the host orchestrator in ``parity.py`` instead of this module's
@@ -49,17 +49,9 @@ def _refill_native(cfg, colour, kind, key):
     return colour, kind, key
 
 
-def make_playable(
-    cfg: EnvConfig, colour, kind, key, init_has_lines, init_top, mask0=None
-):
+def make_playable(cfg: EnvConfig, colour, kind, key, init_has_lines, init_top):
     """The regenerate/playability loop shared by ``generate_board``
     (`board.py:102-109`) and the end of ``move`` (`board.py:381-391`).
-
-    ``mask0``: optional precomputed effective-action mask for the INCOMING
-    board (the fused no-specials cascade kernel computes it in-kernel) —
-    only valid when ``init_has_lines`` is statically False, so the
-    clear-lines phase cannot have changed the board before the mask is
-    first consulted.
 
     While the board has no effective move or still has colour lines: if
     lines exist, clear them (native scheme: redraw run-member cells, see
@@ -119,8 +111,7 @@ def make_playable(
     colour, key, has_lines, top, tot = clear_lines(
         colour, key, init_has_lines, init_top, jnp.int32(0)
     )
-    if mask0 is None:
-        mask0 = effective_mask_settled(cfg, colour, kind)
+    mask0 = effective_mask_settled(cfg, colour, kind)
 
     def cond(carry):
         colour, kind, key, mask, has_lines, top, shuffled, tot = carry
@@ -170,14 +161,12 @@ def generate_board(cfg: EnvConfig, key):
     return colour, kind, key, mask, gave_up
 
 
-def specials_cascade_trip_grid(cfg: EnvConfig, colour, kind, grid):
-    """One FULL cascade trip (`board.py:369-376`) with the refill grid
-    passed in: detect → classify → resolve → gravity → refill(grid).
-
-    Shared by the vmapped cascade loop below and the fused specials step's
-    compacted complex-trip rounds (`envs/fused.py`), so both paths run
-    literally the same math.  Returns (colour, kind, elim_d, act_d, new_d,
+def specials_cascade_trip(cfg: EnvConfig, colour, kind, sub, it):
+    """One FULL cascade trip (`board.py:369-376`): detect → classify →
+    resolve → gravity → refill, the refill grid drawn from
+    ``fold_in(sub, it)``.  Returns (colour, kind, elim_d, act_d, new_d,
     ovf)."""
+    grid = draw_colour_grid(jax.random.fold_in(sub, it), cfg)
     ls = get_colour_lines(cfg, colour, kind)
     m = process_colour_lines(cfg, colour, ls)
     colour, kind, act_d, new_d, r_ovf = resolve_colour_matches(
@@ -187,13 +176,6 @@ def specials_cascade_trip_grid(cfg: EnvConfig, colour, kind, grid):
     colour, kind = gravity(colour, kind)
     colour, kind = apply_refill(colour, kind, grid)
     return colour, kind, elim_d, act_d, new_d, m.ovf | r_ovf
-
-
-def specials_cascade_trip(cfg: EnvConfig, colour, kind, sub, it):
-    """`specials_cascade_trip_grid` drawing its own refill grid from
-    fold_in(sub, it) — the vmapped cascade loop's per-trip body."""
-    grid = draw_colour_grid(jax.random.fold_in(sub, it), cfg)
-    return specials_cascade_trip_grid(cfg, colour, kind, grid)
 
 
 def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask):
@@ -265,10 +247,8 @@ def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask
         # cascade: detect → resolve → gravity → refill until no matches
         # (`board.py:367-376`), bounded by max_cascades.  Refill randomness
         # is counter-based: trip t draws from fold_in(sub, t), so any trip's
-        # grid is computable independently (the Pallas fused cascade
-        # precomputes fills for a whole trip chunk in parallel and stays
-        # bit-identical to this loop), and the key evolution is
-        # trip-count-independent.
+        # grid is computable independently of the others, and the key
+        # evolution is trip-count-independent.
         key, sub = jax.random.split(key)
 
         def casc_cond(carry):
@@ -306,14 +286,17 @@ def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask
                 trunc, it + 1,
             )
 
-        colour, kind, key, elim, activated, new, trunc, trips = jax.lax.while_loop(
-            casc_cond,
-            casc_body,
-            (
-                colour, kind, key, elim, activated, jnp.int32(0), trunc,
-                jnp.int32(0),
-            ),
-        )
+        with jax.named_scope("cascade"):
+            colour, kind, key, elim, activated, new, trunc, trips = (
+                jax.lax.while_loop(
+                    casc_cond,
+                    casc_body,
+                    (
+                        colour, kind, key, elim, activated, jnp.int32(0),
+                        trunc, jnp.int32(0),
+                    ),
+                )
+            )
         # lines surviving the loop exit = the cascade cap truncated them
         trunc = trunc | has_any_line(cfg, colour, kind)
 
@@ -321,9 +304,10 @@ def engine_move(cfg: EnvConfig, colour, kind, key, coord1, coord2, eff, cur_mask
         elim = elim + new
 
         # playability loop (`board.py:381-391`): initial line state is empty.
-        colour, kind, key, shuffled, post_mask, gave_up = make_playable(
-            cfg, colour, kind, key, jnp.asarray(False), jnp.int32(0)
-        )
+        with jax.named_scope("playability"):
+            colour, kind, key, shuffled, post_mask, gave_up = make_playable(
+                cfg, colour, kind, key, jnp.asarray(False), jnp.int32(0)
+            )
         return (
             colour, kind, key, elim, comb, new, activated, shuffled,
             post_mask, trunc | gave_up, trips,

@@ -1,47 +1,26 @@
 """Native batched environment: vmap-first, auto-resetting, scan-rollable.
 
-This is the TPU-native counterpart of running thousands of independent
+This is the batched counterpart of running thousands of independent
 reference envs (the reference is strictly one env per process,
 `tile_match_env.py`): a batch of `EnvState`s stepped in lockstep under one
 ``jit``.  Independent boards ⇒ no intra-step communication; the batch shards
-trivially across chips/hosts (see ``parallel/``).
+trivially across devices and hosts (see ``parallel/``).
 """
 
 from __future__ import annotations
 
-import os
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import EnvConfig
 from ..engine import generate_board, reset, step
+from ..pytree import pytree_dataclass
 from ..state import EnvState, StepInfo
 
 
-def _use_fused(cfg: EnvConfig) -> bool:
-    """Fused (Pallas-cascade) batched step: default-on on TPU for every
-    config — the no-specials kernel runs the whole cascade, the specials
-    kernel runs all simple trips with the vmapped machinery handling only
-    complex trips — and off elsewhere (the kernel is TPU Mosaic; CPU and
-    the virtual test meshes take the vmapped XLA path, which is
-    bit-identical — asserted by tests/envs/test_fused_step.py).
-    TMT_FUSED=0 disables, TMT_FUSED=1 forces (interpret mode off-TPU, for
-    debugging)."""
-    flag = os.environ.get("TMT_FUSED")
-    if flag == "0":
-        return False
-    if flag == "1":
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-@struct.dataclass
+@pytree_dataclass
 class TimeStep:
     obs_board: jnp.ndarray  # i32[B, 2, R, C]
     obs_moves_left: jnp.ndarray  # i32[B]
@@ -84,26 +63,7 @@ def batched_step(
     # With auto_reset the post-step mask must describe the POST-RESET board
     # (the returned obs is the new episode's first obs), so the mask is
     # computed once after resets rather than inside step().
-    if _use_fused(cfg):
-        from ..ops.effective import effective_mask_settled
-        from .fused import batched_step_fused, batched_step_fused_sp
-
-        if eff_mask is None:
-            eff_mask = jax.vmap(
-                lambda s: effective_mask_settled(cfg, s.colour, s.kind)
-            )(states)
-        fused_step = (
-            batched_step_fused_sp if cfg.any_special else batched_step_fused
-        )
-        next_states, rewards, dones, infos = fused_step(
-            cfg,
-            states,
-            actions,
-            eff_mask,
-            compute_post_mask=not auto_reset,
-            interpret=jax.default_backend() != "tpu",
-        )
-    elif eff_mask is None:
+    if eff_mask is None:
         next_states, rewards, dones, infos = jax.vmap(
             lambda s, a: step(cfg, s, a, compute_post_mask=not auto_reset)
         )(states, actions)

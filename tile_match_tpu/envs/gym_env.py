@@ -9,8 +9,8 @@ lives in an engine object selected by ``rng_mode``:
 
 * ``"numpy"`` (default): :class:`~tile_match_tpu.parity.ParityEngine`,
   bit-exact trajectories vs the reference under the same seed.
-* ``"threefry"``: the JAX counter-based engine driving the same batched
-  kernels used on TPU (single-board view).
+* ``"threefry"``: the JAX counter-based engine driving the same kernels
+  as the batched env (single-board view).
 """
 
 from __future__ import annotations

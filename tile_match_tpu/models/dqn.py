@@ -1,10 +1,10 @@
 """Batched deep Q-learning on the native env — the framework's flagship model.
 
-TPU-native replacement for the reference's SB3/QRDQN example
+On-device replacement for the reference's SB3/QRDQN example
 (`examples/qrdqn.py:15-40`, which trains a MultiInputPolicy on the Dict obs):
 here the whole loop — env stepping, replay, epsilon-greedy action selection
 with effective-action masking, Q-update — runs on device under one jit, with
-the env batch data-parallel across chips and the network optionally
+the env batch data-parallel across devices and the network optionally
 tensor-parallel (see ``parallel/`` and ``__graft_entry__``).
 """
 
@@ -27,8 +27,8 @@ from ..wrappers import one_hot_board
 class QNetwork(nn.Module):
     """MLP over flattened one-hot planes + moves-left scalar.
 
-    Hidden layers sized for MXU efficiency (multiples of 128); bfloat16
-    matmuls with f32 accumulation.
+    Hidden widths are multiples of 128; bfloat16 matmuls with f32
+    accumulation.
     """
 
     num_actions: int

@@ -2,8 +2,8 @@
 
 Counterpart of the reference's random-agent harness
 (`examples/random_agent.py:12-96`): per-episode returns and
-effective-action counts, but for thousands of envs at once via the fused
-policy+step kernel; results are saved in the reference's JSON layout.
+effective-action counts, but for thousands of envs at once in one jitted
+policy+step program; results are saved in the reference's JSON layout.
 """
 
 from __future__ import annotations

@@ -11,12 +11,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import EnvConfig
+from ..pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class Replay:
     boards: jnp.ndarray  # i8[N, 2, R, C]
     moves: jnp.ndarray  # i8[N]

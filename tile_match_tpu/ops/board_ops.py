@@ -40,8 +40,8 @@ def gravity(colour, kind):
     # Stable two-way partition via prefix sums: an empty cell at row r lands
     # at (number of empties above it); a tile lands at (total empties) +
     # (number of tiles above it).  The permutation is applied as a one-hot
-    # multiply-reduce over the destination rows — scatter/gather-free, since
-    # TPU lowers batched multi-index scatters to serialized scalar loops.
+    # multiply-reduce over the destination rows, without a scatter or
+    # gather.
     n_empty = jnp.sum(empty, axis=0, keepdims=True)
     csum_e = jnp.cumsum(empty, axis=0)
     csum_t = jnp.cumsum(~empty, axis=0)

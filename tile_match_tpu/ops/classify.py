@@ -19,14 +19,12 @@ order keys: pop = argmin(order), append = fresh slot with a monotonically
 increasing key, remove = key := BIG.  The whole machine is one
 ``lax.while_loop`` with masked vector updates, so it jits and vmaps.
 
-Performance notes (TPU):
+Implementation notes:
 
 * Shared-coordinate tests run on per-line membership **bitboards**
   (``bmask: bool[LM2, R*C]``), kept incrementally updated through cookie
   re-appends and bomb partner-shrinks.  All coordinate-set operations become
-  elementwise AND/any reductions — XLA's scatter/gather lowering on TPU is a
-  serialized scalar loop (~10ms per call at batch 1024), which previously
-  dominated the entire cascade.
+  elementwise AND/any reductions instead of index scatters and gathers.
 * Match capacity is ``MM = LM2``: every emit consumes one pop and each pop
   kills one slot, so emits can never exceed the LM2 total slots ever alive —
   ``mcount`` cannot overflow by construction.
@@ -37,7 +35,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as _np
-from flax import struct
 
 from ..config import (
     EnvConfig,
@@ -47,11 +44,12 @@ from ..config import (
     MATCH_NORMAL,
     MATCH_V_LASER,
 )
+from ..pytree import pytree_dataclass
 from .lines import LineSet
 from .runs import BIG
 
 
-@struct.dataclass
+@pytree_dataclass
 class Matches:
     coords: jnp.ndarray  # i32[MM, CM, 2]; (-1,-1) padded
     length: jnp.ndarray  # i32[MM]
@@ -139,16 +137,15 @@ def process_colour_lines(cfg: EnvConfig, colour, lineset: LineSet) -> Matches:
 
     # Slot order, NOT sorted: the merge below orders every emission by its
     # key anyway, so the fast side needs no argsort and no permutation
-    # gathers (TPU row-gathers at [B, LM2] cost ~0.4ms each at batch 1024
-    # and were half the cascade trip).
+    # gathers.
     f_live = fast_live0  # independent-line liveness, slot order
     f_root = jnp.where(f_live, lo, BIG)  # root order keys
     f_len0 = jnp.where(f_live, ll, 0)
     f_coords_L = jnp.where(f_live[:, None, None], lc, -1)  # [LM2, L, 2]
     fr0 = jnp.clip(f_coords_L[:, 0, 0], 0, R - 1)
     fc0 = jnp.clip(f_coords_L[:, 0, 1], 0, C - 1)
-    # first-coord colour via one-hot reduce (a batched [LM2]-index gather
-    # costs ~0.4ms/call on TPU; this is pure vector work)
+    # first-coord colour via a one-hot multiply-reduce over the cells
+    # (equivalent to a [LM2]-index gather)
     ord0 = fr0 * C + fc0  # [LM2]
     f_colour0 = jnp.where(
         f_live,
@@ -374,8 +371,7 @@ def process_colour_lines(cfg: EnvConfig, colour, lineset: LineSet) -> Matches:
                 axis=1,
             )
             extra_ok = sel3_valid & (~in_line)
-            # unrolled 3-element cumsum (TPU lowers cumsum to a ~0.3ms
-            # reduce-window even at this size, and this runs per pop)
+            # 3-element cumsum, unrolled
             e_i = extra_ok.astype(jnp.int32)
             extra_pos = n + jnp.stack(
                 [e_i[0], e_i[0] + e_i[1], e_i[0] + e_i[1] + e_i[2]]
@@ -403,7 +399,7 @@ def process_colour_lines(cfg: EnvConfig, colour, lineset: LineSet) -> Matches:
             keep_mask = (~removed) & (kk < p_len)
             # stable compaction of kept coords (dropped ones scatter to the
             # spill slot L, which is trimmed off); cumsum via triangular
-            # multiply-reduce (cheaper than TPU's reduce-window lowering)
+            # multiply-reduce
             tri = kk[:, None] >= kk[None, :]  # [L, L]
             dest = (
                 jnp.sum(tri * keep_mask.astype(jnp.int32)[None, :], axis=1) - 1

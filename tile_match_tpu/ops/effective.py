@@ -76,10 +76,10 @@ def _window_tables(cfg: EnvConfig):
     flat2 = c2[:, 0] * C + c2[:, 1]
     n_down = C * (R - 1)
 
-    # Selection matrix for the window gather as an MXU matmul: TPU lowers the
-    # [36, A] dynamic-looking gather into a painfully slow loop, while
-    # board @ S (S one-hot, [R*C, 36*A]) is a tiny systolic-array matmul with
-    # bit-exact small-int results in bf16.
+    # Selection matrix for the window gather as a matmul: board @ S (S
+    # one-hot, [R*C, 36*A]) picks each action's 36 window cells.  Every
+    # output is one tile value (colours <= 17, kinds -1..4), which bf16
+    # holds exactly (integers below 256).
     sel = np.zeros((R * C, 36 * A), np.float32)
     flatT = flat.T  # [36, A]
     for w in range(36):
@@ -123,9 +123,9 @@ def _swap_in_windows(w, n_down):
 def effective_mask(cfg: EnvConfig, colour, kind) -> jnp.ndarray:
     """bool[num_actions]: which swaps would do anything (`board.py:735-787`).
 
-    The window "gather" runs as a one-hot selection matmul on the MXU
-    (board-vector x [R*C, 36*A] 0/1 matrix): bit-exact for the small integer
-    tile values and orders of magnitude faster than TPU gather lowering.
+    The window "gather" runs as a one-hot selection matmul (board-vector x
+    [R*C, 36*A] 0/1 matrix), exact in bf16 for the small integer tile
+    values.
     """
     (
         _flat_np,

@@ -23,13 +23,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import EnvConfig
+from ..pytree import pytree_dataclass
 from .runs import BIG, colour_run_extents, true_run_extents, _shift
 
 
-@struct.dataclass
+@pytree_dataclass
 class LineSet:
     coords: jnp.ndarray  # i32[LM, L, 2]; (-1, -1) padded
     length: jnp.ndarray  # i32[LM]; 0 for unused slots
@@ -139,9 +139,7 @@ def get_colour_lines(cfg: EnvConfig, colour, kind) -> LineSet:
         )
 
     # Top-LM extension candidates by order key, materialised through one-hot
-    # multiply-reduces instead of permutation gathers / index scatters (TPU
-    # lowers both to serialized scalar loops; the compare-reduce is pure
-    # vector work).
+    # multiply-reduces instead of permutation gathers / index scatters.
     perm = jnp.argsort(e_ord)[:LM]
     oh_perm = (
         jnp.arange(e_ord.shape[0], dtype=jnp.int32)[None, :] == perm[:, None]

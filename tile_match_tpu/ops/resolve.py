@@ -28,9 +28,7 @@ def _match_union_mask(cfg: EnvConfig, matches: Matches):
     """bool[R, C]: union of all live match coordinates.
 
     Computed as a compare-any reduction against the flat cell index rather
-    than a scatter: TPU lowers the batched [MM*CM]-index scatter to a
-    serialized scalar loop (~10ms/call at batch 1024 — it dominated each
-    cascade trip), while the compare-reduce is pure vector work.
+    than a [MM*CM]-index scatter.
     """
     R, C = cfg.num_rows, cfg.num_cols
     MM, CM = matches.coords.shape[0], matches.coords.shape[1]
@@ -285,7 +283,7 @@ def resolve_colour_matches(cfg: EnvConfig, colour, kind, matches: Matches):
 
     # ---- phase 3: create the queued specials (`board.py:426-427`) ---------
     # Positions are unique (taken-set), so a one-hot multiply-reduce writes
-    # them all at once (scatter-free: TPU scatters serialize).
+    # them all at once, without a scatter.
     new_kind_code = jnp.where(q_t == MATCH_COOKIE, KIND_COOKIE, q_t)
     cell_ids = jnp.arange(R * C, dtype=jnp.int32)
     ordq = jnp.where(q_ok, q_r * C + q_c, -1)  # [MM]

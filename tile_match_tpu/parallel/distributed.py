@@ -2,7 +2,7 @@
 
 The env batch is host-local (independent boards ⇒ no cross-host traffic on
 the step path); jax.distributed wires the hosts into one global mesh so a
-sharded learner and psum'd metrics span the pod slice.
+sharded learner and psum'd metrics span every host's devices.
 """
 
 from __future__ import annotations
@@ -20,9 +20,9 @@ def initialize_distributed(
 ) -> bool:
     """Initialise jax.distributed when running multi-host.
 
-    No-ops (returns False) for single-process runs; env-var driven
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or
-    auto-detected on TPU pods when arguments are omitted.
+    Arguments left out are read from JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID.  With neither a coordinator nor a
+    process count it is a single-process run: nothing to do, returns False.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
@@ -31,14 +31,6 @@ def initialize_distributed(
     process_id = process_id if process_id is not None else _int_env("JAX_PROCESS_ID")
 
     if coordinator_address is None and num_processes is None:
-        # On TPU pods jax.distributed.initialize() auto-detects; on CPU/single
-        # host there is nothing to do.
-        if os.environ.get("TPU_WORKER_HOSTNAMES") and jax.process_count() == 1:
-            try:
-                jax.distributed.initialize()
-                return True
-            except Exception:
-                return False
         return False
 
     jax.distributed.initialize(

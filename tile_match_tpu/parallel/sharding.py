@@ -4,7 +4,7 @@ Layout strategy ("How to Scale Your Model" recipe): pick a mesh, annotate
 shardings on the batch dimension, let XLA insert collectives.  Because envs
 are independent, the rollout inserts *no* collectives on the step path — only
 the metric reduction (psum over ``dp``) and the learner's gradient
-all-reduce ride the ICI.
+all-reduce cross devices.
 """
 
 from __future__ import annotations

@@ -57,7 +57,7 @@ class Renderer:
         self.screen_width, self.screen_height = w, h
         if self.render_mode == "human":
             pygame.display.init()
-            pygame.display.set_caption("Tile Match (TPU)")
+            pygame.display.set_caption("Tile Match")
             self.screen = pygame.display.set_mode((w, h))
             self.clock = pygame.time.Clock()
         else:

@@ -10,12 +10,12 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
 
 from .config import EnvConfig
+from .pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class EnvState:
     """Full per-environment Markov state.
 
@@ -35,7 +35,7 @@ class EnvState:
         return jnp.stack([self.colour, self.kind], axis=0)
 
 
-@struct.dataclass
+@pytree_dataclass
 class StepInfo:
     """Batched counterpart of the reference info dict (`tile_match_env.py:103-109`)."""
 

@@ -1,8 +1,7 @@
-"""Production truncation audit: run the fused step at an operating batch
+"""Production truncation audit: run the batched step at an operating batch
 and count sticky ``StepInfo.truncated`` flags (capacity-cap hits: cascade
 cap, classify/activation slot caps, regen cap) over a random-effective
-rollout.  The 0-truncations claim in BENCH.md must cover the batches the
-bench actually records (VERDICT r4 item 8).
+rollout.  A claim of no truncation holds only for the batches audited.
 
 Usage:
   python tools/truncation_audit.py [--config N] [--batch B] [--steps S]
@@ -30,18 +29,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from bench import CONFIGS, JAX_CACHE
-    from tile_match_tpu.config import EnvConfig
+    from tile_match_tpu.baseline_configs import CONFIGS
+    from tile_match_tpu.compile_cache import enable_compile_cache
     from tile_match_tpu.envs.batched import batched_reset, batched_step
 
-    os.makedirs(JAX_CACHE, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", JAX_CACHE)
-
-    R, C, K, MOVES, COLOURLESS, COLOUR_SP = CONFIGS[args.config]
-    cfg = EnvConfig.create(
-        R, C, K, MOVES, colourless_specials=COLOURLESS,
-        colour_specials=COLOUR_SP,
-    )
+    enable_compile_cache()
+    cfg = CONFIGS[args.config]
 
     @jax.jit
     def run(key):
